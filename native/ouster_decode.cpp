@@ -6,7 +6,7 @@
 // feed fixed-shape device buffers. Exposed through a plain C ABI consumed via
 // ctypes (slamtpu/lidar/native.py). Unlike the reference's per-point
 // push_back decode, output is dense (packet x column x subset-channel) grids
-// — the TPU-shaped layout — so the inner loop is branch-light and
+// — the device-shaped layout — so the inner loop is branch-light and
 // auto-vectorizable (the AVX2 path of the reference collapses into plain
 // contiguous loops the compiler vectorizes).
 //

@@ -1,4 +1,4 @@
-"""slamtpu — a TPU-native (JAX/XLA/Pallas) LiDAR-inertial SLAM framework.
+"""slamtpu — a JAX/XLA/Pallas LiDAR-inertial SLAM framework.
 
 Re-designed from scratch with the capabilities of the reference C++ stack
 khalisfadil/slam-sam (Ouster + GNSS/INS decoding, NDT voxel-hash Gaussian maps,
@@ -10,8 +10,8 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU matmuls default to bfloat16 inputs (8-bit mantissa), which corrupts
-# SE(3) chains and least-squares solves: on-device trajectories degrade ~4x
-# vs float32 (measured). SLAM geometry needs true float32 everywhere; the
-# registration hot path is gather-bound, so the MXU cost of this is noise.
+# GPU float32 matmuls may run in TF32 (about three decimal digits), which
+# corrupts SE(3) chains and least-squares solves. SLAM geometry needs true
+# float32 everywhere; the registration hot path is bound by memory traffic,
+# not by the tensor cores, so this costs little.
 _jax.config.update("jax_default_matmul_precision", "highest")

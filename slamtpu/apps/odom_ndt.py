@@ -36,18 +36,6 @@ from .common import (IngestPipeline, TrajectoryEntry, ins_pose_ned, maybe_deskew
 log = logging.getLogger("slamtpu.odom_ndt")
 
 
-def _use_fused(new_points):
-    """Fused Pallas path on real TPU (interpret mode on CPU would dominate
-    test runtimes; the XLA path is numerically equivalent)."""
-    from ..ndt.pallas_math import BLOCK
-
-    return (
-        jax.default_backend() == "tpu"
-        and new_points.dtype == jnp.float32
-        and new_points.shape[0] % BLOCK == 0
-    )
-
-
 @partial(
     jax.jit,
     static_argnames=(
@@ -75,7 +63,7 @@ def _register_step(
     inner_iters: int = 2,  # fused-kernel Newton steps per gather
     scan_grid: tuple = None,  # (cols, sub) range-image layout of new_points:
     #   enables the stencil source covariances for the GICP-aniso engine
-    #   (ndt.gicp.stencil_point_covariances — <1 ms vs the ~15 ms sort path)
+    #   (ndt.gicp.stencil_point_covariances — shifts + FMA, no sort)
 ):
     """Build the target map and register by the configured engine — the
     analog of the reference's registration_method switch
@@ -109,6 +97,7 @@ def _register_step(
     if method == "GICP":
         gmap = build_gmap()
         from ..ndt import build_regmap, gicp_align, gicp_align_fused, gicp_map
+        from ..ndt.pallas_math import pair_math_impl
 
         if cfg.gicp_aniso:
             # plane-to-plane mode: per-point source covariances from the
@@ -136,7 +125,7 @@ def _register_step(
                 grid_shape or (256, 256, 64),
             )
         regmap = build_regmap(gicp_map(gmap), grid_shape=grid_shape or (256, 256, 64))
-        if _use_fused(new_points) and grid_shape is not None:
+        if pair_math_impl() == "kernel" and grid_shape is not None:
             return gicp_align_fused(
                 new_points, new_mask, regmap, init_guess, cfg,
                 grid_shape, inner_iters=inner_iters,
@@ -178,7 +167,7 @@ def _register_step(
             new_points, new_mask, build_gmap(), init_guess, cfg, reg_pose=reg_pose
         )
     from ..ndt import build_regmap, build_regmap_kdtree, newton_align_reg
-    from ..ndt.pallas_math import newton_align_fused
+    from ..ndt.pallas_math import newton_align_fused, pair_math_impl
 
     # KDTREE search mode pairs the centroid-gated objective (cfg.kd_radius)
     # with the 27-neighborhood nearest-leaf RegMap layout
@@ -194,7 +183,7 @@ def _register_step(
             return jax.tree.map(lambda a, e: a.astype(e.dtype), rm, regmap_cache)
 
         regmap = jax.lax.cond(rebuild, do_build, lambda _: regmap_cache, None)
-    if _use_fused(new_points):
+    if pair_math_impl() == "kernel":
         res = newton_align_fused(
             new_points, new_mask, regmap, init_guess, cfg, grid_shape,
             inner_iters=inner_iters, reg_pose=reg_pose,
@@ -257,7 +246,7 @@ def _odom_fused_step(
     carried window state never leaves the device.
     """
     W = window
-    cd = carry["win_trans"].dtype  # f64 under x64 (CPU tests), f32 on TPU
+    cd = carry["win_trans"].dtype  # f64 under x64 (CPU tests), f32 on device
     f32 = jnp.float32
     ins_pose = Pose3(flat[0:9].reshape(3, 3).astype(cd), flat[9:12].astype(cd))
     scaled_sigma = jnp.maximum(flat[12:18].astype(cd), 1e-6)
@@ -299,7 +288,7 @@ def _odom_fused_step(
             # RegisterConfig.odom_target_exclude: drop the newest E clouds
             # from the target — the ring-pattern lock is a NEAREST-viewpoint
             # effect (correlation decays below mm past ~1.5 m separation,
-            # BENCH_NOTES "ATE error budget"); clouds >= 2 keyframes back
+            # measured); clouds >= 2 keyframes back
             # still cover the scan while their ring phases have diverged.
             # Clamped during fill-up so at least one cloud always remains.
             keep_from_newest = jnp.arange(M)[::-1]  # M-1 -> 0, ..., 0 -> M-1
@@ -460,7 +449,7 @@ class OdomNdtApp:
         )
         # range-image layout of the projected sweep: the GICP-aniso engine's
         # source covariances come from the grid stencil instead of the
-        # ~15 ms sort-based voxel pass (same knob as lo_svn's polish,
+        # sort-based voxel pass (same knob as lo_svn's polish,
         # RegisterConfig.svn_src_cov)
         self._scan_grid = (
             (self.cfg.meta.columns_per_frame, self.ingest.luts.subset_channels)

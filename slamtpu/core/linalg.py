@@ -1,4 +1,4 @@
-"""Batched small-matrix linear algebra for TPU.
+"""Batched small-matrix linear algebra.
 
 Replaces the Eigen usage in the reference (SelfAdjointEigenSolver per NDT voxel,
 /root/reference/extern/svn_ndt/include/voxel_grid_covariance_impl.hpp:298; LDLT

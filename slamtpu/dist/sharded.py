@@ -10,11 +10,13 @@ point-voxel pairs, so it shards cleanly along the point axis —
   followed by an associative merge (sums of (N, Sx, Sxx) commute).
 - **Registration**: the Gaussian map is replicated; each chip evaluates the
   fused NDT objective on its point shard; (score, grad, Hessian) are combined
-  with ``psum`` over ICI (a 43-float all-reduce per Newton iteration); the
-  6x6 solve and retract run replicated.
+  with ``psum`` (a 43-float all-reduce per Newton iteration); the 6x6 solve
+  and retract run replicated.
 
-Everything is expressed with ``shard_map`` over a named mesh, so the same
-code runs on one chip, a v5p pod slice, or the CPU test mesh.
+Everything is expressed with ``shard_map`` over a named 1-D mesh, so the same
+code runs on one card, the cards of one host, or the CPU test mesh. The
+pair-math implementation follows the platform of the mesh's devices
+(``ndt.pallas_math.pair_math_impl``).
 """
 from __future__ import annotations
 
@@ -185,7 +187,7 @@ def newton_align_sharded_reg(
 ):
     """Sharded Newton NDT on the search-free RegMap layout (the production
     multi-chip path: each chip runs the dense-grid gathers + pair math on its
-    point shard; one psum of (score, grad, Hessian) per iteration rides ICI).
+    point shard; one psum of (score, grad, Hessian) per iteration).
     Returns (pose, hessian, score, iterations)."""
     from ..ndt import regmap as regmap_mod
 
@@ -233,22 +235,21 @@ def newton_align_sharded_fused(
     gather_stale_frac: float = 0.25,
     axis_name: str = "data",
     block: int = None,
+    interpret: bool = False,
 ):
-    """Sharded Newton NDT on the fused Pallas pair-math kernel: each chip
-    gathers mega rows and runs the fused kernel on its point shard; one psum
-    of (score, grad, Hessian, count) per Newton step rides ICI, and each
-    gather is reused for ``inner_iters`` steps (the single-chip
-    newton_align_fused recipe, distributed). Returns (pose, hessian, score,
-    iterations). ``block`` sizes the kernel point blocks (tests shard tiny
-    clouds; the per-chip N must be a multiple of it)."""
+    """Sharded Newton NDT on the fused pair math: each device gathers mega
+    rows and evaluates the pair math on its point shard; one psum of (score,
+    grad, Hessian) per Newton step combines them, and each gather is reused
+    for ``inner_iters`` steps (the single-device newton_align_fused recipe,
+    distributed). Returns (pose, hessian, score, iterations). ``block``
+    sizes the kernel's point blocks; ``interpret`` (tests only) runs the
+    kernel in the Pallas interpreter."""
     from ..ndt.constants import gauss_constants
     from ..ndt.pallas_math import fused_objective, gather_megaT
 
     d1, d2, _ = gauss_constants(resolution, outlier_ratio)
     dtype = jnp.float32
-    # the kernel runs on THIS mesh's devices, not the default backend (a CPU
-    # test mesh on a TPU session must interpret)
-    interpret = mesh.devices.flat[0].platform != "tpu"
+    platform = mesh.devices.flat[0].platform
 
     @partial(
         shard_map,
@@ -263,7 +264,7 @@ def newton_align_sharded_fused(
         def one_step(pose, megaT):
             obj = fused_objective(
                 ptsT, megaT, pose, d1, d2, hess_lambda=0.0, block=block,
-                interpret=interpret,
+                interpret=interpret, platform=platform,
             )
             score = jax.lax.psum(obj.score, axis_name)
             grad = jax.lax.psum(obj.grad, axis_name)
@@ -331,7 +332,7 @@ def newton_align_sharded_fused(
         megaT = gather_megaT(pts, msk, pose, rmap, grid_shape)
         obj = fused_objective(
             ptsT, megaT, pose, d1, d2, hess_lambda=0.0, block=block,
-            interpret=interpret,
+            interpret=interpret, platform=platform,
         )
         score = jax.lax.psum(obj.score, axis_name)
         hess = jax.lax.psum(obj.hess, axis_name) + hess_lambda * jnp.eye(
@@ -356,6 +357,7 @@ def lo_train_step(
     min_points_per_voxel: int = 6,
     block: int | None = None,
     axis_name: str = "data",
+    interpret: bool = False,
 ):
     """One full LiDAR-odometry step over the mesh: register the (sharded)
     scan against the current map, then fold the registered scan's voxel
@@ -367,7 +369,7 @@ def lo_train_step(
     search-free RegMap layout, and dispatch the fused Pallas pair-math kernel
     per shard with one psum per Newton step (``newton_align_sharded_fused``).
     The searchsorted baseline (``newton_align_sharded``) is kept only as a
-    test oracle: it compiles pathologically slowly on TPU (BENCH_NOTES.md).
+    test oracle.
 
     Returns (pose, hessian, score, iterations, new_map_stats)."""
     from ..ndt.regmap import build_regmap
@@ -386,6 +388,7 @@ def lo_train_step(
         inner_iters=inner_iters,
         block=block,
         axis_name=axis_name,
+        interpret=interpret,
     )
 
     n_dev = mesh.shape[axis_name]
@@ -437,14 +440,15 @@ def svn_align_sharded(
     grid_shape: tuple,
     axis_name: str = "data",
     block: int = None,
+    interpret: bool = False,
 ):
     """SVN-NDT with the K-particle axis sharded over the mesh.
 
     The single-chip path (ndt.svn.svn_align_reg) vmaps stage 1 over K
     particles; here each chip evaluates the fused NDT objective for its
     K/D local particles — the elevation of the reference's OpenMP stage-1
-    fan-out (svn_ndt_impl.hpp:719-813) to the pod. Stage 2's kernel moments
-    are sums over the SOURCE particle axis l:
+    fan-out (svn_ndt_impl.hpp:719-813) to several devices. Stage 2's kernel
+    moments are sums over the SOURCE particle axis l:
 
         phi[k]  = (1/K) sum_l  k[l,k] grad[l] + dk[l,k]
         Ht[k]   = (1/K) sum_l  k[l,k]^2 H[l]  + dk[l,k] dk[l,k]^T
@@ -454,8 +458,8 @@ def svn_align_sharded(
     exactly its K/D rows of (phi, Ht) — each 6-dof Stein-Newton solve runs
     once on one chip, not D times. Per iteration the wire carries one
     all_gather of particle poses (K x 12 floats) + the scattered moments
-    (K x 42 floats) + one 6-float psum for the mean: all ICI-cheap next to
-    stage 1's K/D fused-kernel dispatches.
+    (K x 42 floats) + one 6-float psum for the mean: all cheap next to
+    stage 1's K/D pair-math evaluations.
 
     Particle init, convergence, polish ("ndt" objective only) and the
     posterior mean/covariance match the single-chip semantics; parity is
@@ -477,7 +481,7 @@ def svn_align_sharded(
     lk = K // n_dev
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
     dtype = jnp.float32
-    interpret = mesh.devices.flat[0].platform != "tpu"
+    platform = mesh.devices.flat[0].platform
     I6 = jnp.eye(6, dtype=dtype)
 
     # identical replicated init draw as the single-chip path; each chip
@@ -510,7 +514,7 @@ def svn_align_sharded(
             def obj_fn(pose):
                 return fused_objective(
                     ptsT, megaT, pose, d1, d2, cfg.hess_lambda,
-                    block=block, interpret=interpret,
+                    block=block, interpret=interpret, platform=platform,
                 )
 
             return obj_fn
@@ -641,6 +645,7 @@ def batch_align_sharded(
     inner_iters: int = 1,
     block: int = None,
     axis_name: str = "data",
+    interpret: bool = False,
 ):
     """Data-parallel registration service: B independent scans against ONE
     shared map, the batch axis sharded over the mesh, the RegMap replicated.
@@ -648,10 +653,10 @@ def batch_align_sharded(
     zero collectives in steady state (the complement of
     ``newton_align_sharded_fused``, which shards the POINTS of one scan).
     This is the multi-chip throughput/serving mode: localization requests
-    against a common prebuilt map fan out across the pod."""
+    against a common prebuilt map fan out across the devices."""
     from ..ndt.pallas_math import newton_align_fused_batch
 
-    interpret = mesh.devices.flat[0].platform != "tpu"
+    platform = mesh.devices.flat[0].platform
 
     @partial(
         shard_map,
@@ -663,7 +668,7 @@ def batch_align_sharded(
     def _run(pts, msk, rmap, init):
         return newton_align_fused_batch(
             pts, msk, rmap, init, cfg, grid_shape, inner_iters,
-            interpret=interpret, block=block,
+            interpret=interpret, block=block, platform=platform,
         )
 
     return _run(points, mask, regmap, init_poses)

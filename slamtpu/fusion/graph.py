@@ -1,10 +1,10 @@
 """Fixed-capacity factor graph over a sliding window of nav states.
 
-TPU re-design of the reference's GTSAM usage: instead of an incremental iSAM2
+Re-design of the reference's GTSAM usage: instead of an incremental iSAM2
 Bayes tree (/root/reference/run/pipeline.cpp:486-489, 738-741 — a poor fit
 for XLA), the window is re-solved every keyframe by dense Gauss-Newton
 (slamtpu.fusion.smoother). Window sizes are <= ~32 states, so the normal
-equations are a few-hundred-dof dense solve — cheap on the MXU and exactly
+equations are a few-hundred-dof dense solve — cheap on the device and exactly
 what iSAM2 approximates incrementally.
 
 State per node: pose (SE(3)) + velocity (3) + IMU bias (6) = 15 tangent dofs,

@@ -104,8 +104,8 @@ class LoopDetector:
             world_k, mask_k, origin, cfg.resolution, capacity=1 << 14,
             min_points_per_voxel=4,
         )
-        # RegMap path: the searchsorted lookup of the plain gmap path costs
-        # minutes of XLA compile on the TPU backend in use (BENCH_NOTES.md)
+        # RegMap path: the production registration layout (the sorted-key
+        # gmap path is a test oracle)
         regmap = build_regmap(gmap, grid_shape=cfg.reg_grid_shape)
         res = newton_align_reg(
             pts_j, mask_j, regmap, se3.cast(pose_j, pts_j.dtype),

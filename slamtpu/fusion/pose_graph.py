@@ -2,7 +2,7 @@
 
 The reference's loop-closure scaffold (voxel-bucketed candidate search +
 iSAM2, /root/reference/run/pipeline.cpp:676-736) implies a batch pose-graph
-backend. On TPU we never materialize the sparse normal matrix: per-factor
+backend. We never materialize the sparse normal matrix: per-factor
 6x12 Jacobians come from a vmapped ``jacfwd`` (exact, batched), and the
 normal-equation product H @ x is computed factor-wise with gathers +
 segment-sums — so Gauss-Newton steps run as block-Jacobi-preconditioned

@@ -1,6 +1,6 @@
 """IMU preintegration (Forster et al. / GTSAM CombinedImuFactor semantics).
 
-TPU-native replacement for the reference's
+Array-program replacement for the reference's
 ``gtsam::PreintegratedCombinedMeasurements`` usage
 (/root/reference/run/pipeline_ligo_tc.cpp:323-324, 404, 429-463): the per-scan
 INS sample window is integrated with a single ``jax.lax.scan`` over padded,

@@ -3,8 +3,8 @@
 Replaces the reference's iSAM2 updates (/root/reference/run/pipeline.cpp:
 738-759, run/pipeline_ligo_tc.cpp:578-587) with a full re-linearized solve
 per keyframe: residual Jacobians come from ``jax.jacfwd`` through the factor
-residuals (the window is tiny, so a dense (W*15)^2 normal-equation solve on
-the MXU beats incremental sparse updates), with Levenberg damping and
+residuals (the window is tiny, so a dense (W*15)^2 normal-equation solve
+beats incremental sparse updates), with Levenberg damping and
 fixed-iteration ``lax`` loops. Marginal covariances — needed by the apps for
 KeyFrameStats (pipeline.cpp:753) — are blocks of the inverse normal matrix.
 """
@@ -27,8 +27,8 @@ class SmootherConfig(NamedTuple):
     # "qr": QR on the augmented Jacobian (safest f32 conditioning);
     # "chol": Jacobi-equilibrated Cholesky on the normal equations — the
     # same system (H = J^T J + diag(pin) + damping I), solved at a fraction
-    # of the cost: small-matrix QR is sequential-per-column on TPU and
-    # dominated the ligo keyframe (the pose-only window made the same trade
+    # of the cost: small-matrix QR is sequential per column (the pose-only
+    # window makes the same trade
     # in optimize_pose_window; equilibration keeps diag(H~) == 1 across the
     # ~1e6+ info-magnitude spread between IMU and prior factors).
     solver: str = "qr"
@@ -65,8 +65,8 @@ def optimize(
     pin = jnp.repeat(inactive.astype(dtype), STATE_DIM)
 
     # QR on the augmented Jacobian instead of normal equations: J^T J squares
-    # the condition number, which overflows float32 on TPU (the tests run
-    # f64 on CPU, but the deployed smoother runs f32 on device).
+    # the condition number, which overflows float32 (the tests run f64 on
+    # CPU, but the deployed smoother runs f32 on device).
     sqrt_damp = jnp.sqrt(jnp.asarray(cfg.damping, dtype))
 
     def gn_step(st):
@@ -143,8 +143,7 @@ def optimize_pose_window(
     so the pose solution is identical — but the solve here is 6W dofs
     instead of 15W, and uses equilibrated normal-equations Cholesky instead
     of QR on the (r + 2n) x n augmented Jacobian. Small-matrix QR is
-    sequential-per-column and dominated the odometry keyframe on TPU
-    (BENCH_NOTES round-2 gap analysis); the Jacobi-equilibrated Cholesky
+    sequential per column; the Jacobi-equilibrated Cholesky
     keeps f32 conditioning in check (diag(H~) == 1) at a fraction of the
     cost.
 

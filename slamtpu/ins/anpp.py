@@ -127,7 +127,7 @@ class NavFrame:
 
 def _np_slerp(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
     """Shortest-arc quaternion slerp in host numpy f64 (same semantics as
-    core.so3.quat_slerp; eager jax dispatch costs ~6 ms/op on this path)."""
+    core.so3.quat_slerp; keeps eager device dispatches off this path)."""
     q0 = np.asarray(q0, np.float64)
     q1 = np.asarray(q1, np.float64)
     dot = float(q0 @ q1)

@@ -1,7 +1,7 @@
 """Ouster LiDAR packet decoding (host-side, vectorized numpy).
 
 Byte-level re-implementation of the reference decoder
-(/root/reference/src/lidarcallback.cpp:373-891), reshaped for TPU consumption:
+(reference src/lidarcallback.cpp:373-891), reshaped for the device:
 instead of a growing SoA point list, each completed sweep is a **dense range
 image grid** of fixed shape (columns_per_frame x subset_channels) plus
 per-column timestamps/validity. Projection to 3-D points and all filtering

@@ -1,6 +1,6 @@
 """Point-cloud downsampling / cropping utilities (device-side, fixed shape).
 
-TPU-native equivalents of the PCL filters the reference applies around its
+Fixed-shape array equivalents of the PCL filters the reference applies around its
 mapping pipeline:
 
 - ``voxel_downsample``: one point per occupied voxel — the centroid — like

@@ -4,7 +4,7 @@ The reference stores NDT leaves in a ``tsl::robin_map<size_t, Leaf>`` keyed by a
 dense 1-D leaf index computed from floored voxel coordinates
 (/root/reference/extern/svn_ndt/include/voxel_grid_covariance_impl.hpp:189-192)
 and keeps a separate truncation-keyed archive voxel hash
-(/root/reference/include/map.hpp:29-57). On TPU we replace both with a single
+(reference include/map.hpp:29-57). We replace both with a single
 **packed int32 key**: voxel integer coordinates relative to a map origin, each
 bounded to ``[0, GRID_DIM)`` with ``GRID_DIM = 1024``, packed as
 ``(x * 1024 + y) * 1024 + z`` which fits exactly in 30 bits. Keys sort

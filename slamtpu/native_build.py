@@ -4,8 +4,8 @@ Shared objects are never committed (they are unreviewable and machine-
 specific: -march=native). Artifacts are keyed by the SHA-256 of the source
 bytes — ``lib<stem>-<hash>.so`` — so the loader can only ever dlopen the
 binary produced from the exact current source; a stale or foreign ``.so``
-is simply never looked up (cf. ADVICE round 1: mtime comparison could load
-a planted binary with a newer timestamp).
+is simply never looked up (an mtime comparison could load a planted
+binary with a newer timestamp).
 """
 from __future__ import annotations
 

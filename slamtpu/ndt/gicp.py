@@ -1,7 +1,7 @@
 """Voxelized GICP registration (the reference's GICP method option,
 /root/reference/src/registercallback.cpp:24-91 via pclomp::gicp_omp).
 
-TPU-native formulation follows VGICP (Koide et al.): correspondences come
+The formulation follows VGICP (Koide et al.): correspondences come
 from the voxel grid instead of per-point KD-tree nearest neighbors, and each
 point-voxel pair contributes the plane-to-plane Mahalanobis cost
 
@@ -57,9 +57,29 @@ def score_grad_hess_gicp(
     from .objective import sanitize_points
 
     points, mask = sanitize_points(points, mask)
-    tp, mu, icov, active = regmap_mod.gather_pair_data(
+    _tp, mu, icov, active = regmap_mod.gather_pair_data(
         points, mask, pose, regmap, grid_shape
     )
+    return score_grad_hess_gicp_gathered(
+        points, pose, mu, icov, active, hess_lambda, max_mahal, max_corr_dist
+    )
+
+
+def score_grad_hess_gicp_gathered(
+    points: jax.Array,  # (N, 3) body frame, already sanitized
+    pose,
+    mu: jax.Array,  # (N, 7, 3) pre-gathered voxel means
+    icov: jax.Array,  # (N, 7, 3, 3) pre-gathered (cov + sigma^2 I)^-1
+    active: jax.Array,  # (N, 7)
+    hess_lambda: float = 1e-6,
+    max_mahal: float = 9.0,
+    max_corr_dist: float = 5.0,
+) -> NdtObjective:
+    """Isotropic VGICP cost on pre-gathered Gaussians (see
+    score_grad_hess_gicp)."""
+    from ..core import se3
+
+    tp = se3.transform_points(pose, points)
     icx, _factor, _sp, _ok, mahal = regmap_mod._pair_math(
         tp, mu, icov, active, d1=-1.0, d2=2.0
     )
@@ -124,8 +144,8 @@ def regularize_plane_covariance(cov: jax.Array, eps: float = 1e-3) -> jax.Array:
     so no full eigendecomposition is needed: lambda_min comes from the
     closed-form symmetric-3x3 trigonometric (Cardano) formula and n from
     the largest cross product of two rows of (C - lambda_min I). This is
-    scatter-free — the batched Jacobi path costs ~20 ms per 2^17 voxels on
-    TPU because its column-sliced .at[].set updates serialize (BENCH_NOTES).
+    scatter-free, unlike a batched Jacobi eigensolver whose column-sliced
+    .at[].set updates serialize.
     """
     dtype = cov.dtype
     c00 = cov[..., 0, 0]
@@ -211,9 +231,8 @@ def stencil_point_covariances(
     eps: float = 1e-3,
 ) -> jax.Array:
     """(N, 3, 3) per-point plane-regularized source covariances from the
-    RANGE-IMAGE neighborhood — the TPU-native alternative to the sort-based
-    ``source_point_covariances`` (which costs ~15 ms per Berlin sweep in the
-    lo_svn keyframe budget; this is pure shifts + FMA, <1 ms).
+    RANGE-IMAGE neighborhood — the scatter-free alternative to the sort-based
+    ``source_point_covariances`` (this is pure shifts + FMA, no sort).
 
     The projected sweep is a dense (cols, sub) grid (lidar.project), so each
     point's spatial neighbors are its GRID neighbors — the voxelized analog
@@ -279,8 +298,7 @@ def source_point_covariances(
     voxelized analog of gicp_omp's per-point kNN covariances). Points in
     sparse voxels fall back to the isotropic sigma^2 I.
 
-    Deliberately searchsorted-free (jnp.searchsorted is pathologically slow
-    on this TPU backend, BENCH_NOTES.md): the point->voxel association falls
+    Deliberately searchsorted-free: the point->voxel association falls
     out of the SAME sort used to build the stats — segment ids via cumsum
     over the sorted keys, covariances gathered per sorted point, un-sorted
     through the inverse permutation."""

@@ -1,6 +1,6 @@
 """Newton / Gauss-Newton P2D-NDT registration as a jittable while_loop.
 
-TPU-native replacement for the ndt_omp Newton optimizer the reference builds
+Array-program replacement for the ndt_omp Newton optimizer the reference builds
 its odometry on (/root/reference/run/pipeline.cpp:464-481,557-604): fixed
 maximum iteration count, convergence masking instead of data-dependent exit,
 and the final Hessian returned so callers can derive a pose covariance from

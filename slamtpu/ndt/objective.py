@@ -1,6 +1,6 @@
 """P2D-NDT score / gradient / Hessian against a Gaussian voxel map.
 
-This is the TPU re-design of the reference hot loop (~99% of its runtime:
+This is the array-program re-design of the reference hot loop (~99% of its runtime:
 ``computeParticleDerivatives`` + ``updateDerivatives``,
 /root/reference/extern/svn_ndt/include/svn_ndt_impl.hpp:400-668). Differences
 by design, not translation:
@@ -18,8 +18,7 @@ by design, not translation:
   the shipped configuration, /root/reference/config/register_config.json).
 - **Shape discipline**: everything is fixed-shape (N points x K offsets) with
   validity masks; the per-point x per-neighbor contributions are reduced with
-  einsums that factor the (k) axis out before the expensive 6x6 products, so
-  the FLOPs land on the MXU.
+  einsums that factor the (k) axis out before the expensive 6x6 products.
 
 Numeric guards mirror the reference (svn_ndt_impl.hpp:420-447): Mahalanobis
 negativity clamp, exponent cap at 50, and the near-zero-factor cutoff.

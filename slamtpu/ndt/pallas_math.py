@@ -1,20 +1,30 @@
-"""Fused Pallas kernel for the NDT pair math.
+"""The NDT pair math as one Pallas kernel for NVIDIA GPUs (Triton route).
 
-Division of labor with XLA (measured on v5e):
-- XLA keeps what it is good at: the dense-grid + mega-row gathers
-  (slamtpu.ndt.regmap). Mosaic cannot express large-table gathers
-  (tpu.dynamic_gather addresses one vreg), so they stay outside.
-- The per-pair math (Mahalanobis -> exp weight -> gradient/Hessian moments)
-  reads only CONTIGUOUS per-point data — (N, 96) mega rows + (N, 3) points —
-  and XLA leaves ~40x of bandwidth on the table for it (3.1 ms per 128k-pt
-  evaluation). This kernel fuses the whole chain into one pass over point
-  blocks with on-chip accumulation of the 44 reduction outputs
-  (score, grad(6), hess(36), count).
+Division of labour with XLA:
+- XLA keeps the dense-grid lookup and the (N, 96) mega-row gather
+  (``gather_megaT``): one gather is reused across inner Newton steps and
+  across all K SVN particles, so it stays outside the kernel.
+- The per-pair math (Mahalanobis -> pair weight -> gradient/Hessian moments)
+  reads only contiguous per-point data: the transposed (96, N) mega rows and
+  the (3, N) points. The plain XLA version (``regmap.score_grad_hess_gathered``
+  and its GICP siblings) materialises (N, 7, 3) and (N, 7, 3, 3) intermediates
+  and contracts them over N in separate passes. The kernel reads 99 floats per
+  point once and writes 64 per block.
 
-Padding/out-of-map points arrive with the sentinel mega row (all zeros,
-validity lanes 0), so no separate mask plane is needed.
+Layout for Hopper: every program handles one block of points and writes its
+own row of a (num_blocks, 64) partials array ([0] score, [1:7] gradient,
+[7:43] Hessian row-major, [43] count); a ``jnp.sum`` over blocks is the
+second pass. No atomics, so results repeat bit for bit from run to run.
+Each point keeps about 40 live values, so registers, not shared memory, set
+the block size; loads are one (BLOCK,) row slice per field, which keeps every
+loaded shape a power of two.
 
-Outputs exactly match regmap.score_grad_hess_reg (tests/test_regmap.py).
+Padding and out-of-map points carry the all-zero sentinel mega row (validity
+lanes 0) and contribute nothing, so no separate mask plane is needed; the
+wrapper pads N up to a block multiple the same way.
+
+``pair_math_impl`` is the one place that chooses between this kernel and the
+plain XLA path. Tests run the kernel on the CPU with ``interpret=True``.
 """
 from __future__ import annotations
 
@@ -23,224 +33,112 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..core import se3
 from ..core.se3 import Pose3
 from .objective import MAX_EXPONENT_ARG, MIN_FACTOR, NdtObjective
 from .regmap import RegMap
 
-BLOCK = 2048
-_OUT_LANES = 128  # single (8, 128) accumulator tile
+BLOCK = 512  # points per program (chosen on the H100, see PERF.md)
+NUM_WARPS = 4
+_OUT_LANES = 64  # one partials row per program; lanes 44..63 stay zero
+
+
+def pair_math_impl(platform: str | None = None) -> str:
+    """Which implementation evaluates the pair math on ``platform`` (the
+    platform of the devices the computation runs on; default: JAX's default
+    backend). ``"kernel"`` on a GPU, ``"xla"`` (the plain jnp path) on the
+    CPU; any other platform is an error."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "kernel"
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no pair-math implementation for platform {platform!r}")
+
+
+def _load_pose(params_ref, ptsT_ref):
+    """Scalar params and the block's body-frame and transformed points."""
+    p = [params_ref[c] for c in range(16)]
+    R = p[:9]
+    x = [ptsT_ref[c, :] for c in range(3)]
+    tp = [
+        R[3 * i] * x[0] + R[3 * i + 1] * x[1] + R[3 * i + 2] * x[2] + p[9 + i]
+        for i in range(3)
+    ]
+    return p, R, x, tp
 
 
 def _kernel(params_ref, ptsT_ref, megaT_ref, out_ref, *, gicp: bool):
-    """Grid over point blocks; accumulates partials into one output tile.
+    """NDT (or, with ``gicp``, isotropic VGICP) pair math for one block.
 
-    params (SMEM, (1, 16)): R row-major(9), t(3), d1, d2, gicp_mode,
-    gicp_max_mahal (mode > 0.5 switches the pair weight from the NDT
-    exponential to the trimmed GICP quadratic cost)
-    ptsT (VMEM, (3, B)): body-frame points, plane layout
-    megaT (VMEM, (96, B)): transposed mega rows
-    out (SMEM, (1, 64)): [0]=score, [1:7]=grad, [7:43]=hess row-major,
-    [43]=count (scalar writes; VMEM tiles cannot take scattered scalar sets)
+    params ((16,)): R row-major(9), t(3), d1, d2, unused, max_mahal. In GICP
+    mode the d2 slot carries max_corr_dist^2 and the pair weight is the
+    trimmed quadratic cost instead of the NDT exponential.
+    ptsT ((3, B)): body-frame points; megaT ((96, B)): transposed mega rows;
+    out ((64,)): this block's partial sums.
     """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        for c in range(44):
-            out_ref[0, c] = 0.0
-
-    R00, R01, R02 = params_ref[0, 0], params_ref[0, 1], params_ref[0, 2]
-    R10, R11, R12 = params_ref[0, 3], params_ref[0, 4], params_ref[0, 5]
-    R20, R21, R22 = params_ref[0, 6], params_ref[0, 7], params_ref[0, 8]
-    t0, t1, t2 = params_ref[0, 9], params_ref[0, 10], params_ref[0, 11]
-    d1 = params_ref[0, 12]
-    d2 = params_ref[0, 13]
-    # gicp is a TRACE-TIME constant: the NDT variant compiles with zero
-    # mode-switch overhead (runtime selects with a scalar predicate over
-    # vectors don't legalize in Mosaic anyway)
-    gicp_max_mahal = params_ref[0, 15]
-
-    x0 = ptsT_ref[0, :]
-    x1 = ptsT_ref[1, :]
-    x2 = ptsT_ref[2, :]
-    tp0 = R00 * x0 + R01 * x1 + R02 * x2 + t0
-    tp1 = R10 * x0 + R11 * x1 + R12 * x2 + t1
-    tp2 = R20 * x0 + R21 * x1 + R22 * x2 + t2
-
-    score = jnp.zeros((), jnp.float32)
-    count = jnp.zeros((), jnp.float32)
-    b0 = jnp.zeros_like(x0)
-    b1 = jnp.zeros_like(x0)
-    b2 = jnp.zeros_like(x0)
-    M = [jnp.zeros_like(x0) for _ in range(9)]
-
+    p, R, x, tp = _load_pose(params_ref, ptsT_ref)
+    d1, d2, max_mahal = p[12], p[13], p[15]
+    zero = jnp.zeros_like(x[0])
+    score = count = zero
+    b = [zero] * 3
+    M = [zero] * 9
     for k in range(7):
         base = 12 * k
-        mu0 = megaT_ref[base + 0, :]
-        mu1 = megaT_ref[base + 1, :]
-        mu2 = megaT_ref[base + 2, :]
+        mu = [megaT_ref[base + c, :] for c in range(3)]
         ic = [megaT_ref[base + 3 + c, :] for c in range(9)]
         valid = megaT_ref[84 + k, :] > 0.5
-        xr0 = tp0 - mu0
-        xr1 = tp1 - mu1
-        xr2 = tp2 - mu2
-        icx0 = ic[0] * xr0 + ic[1] * xr1 + ic[2] * xr2
-        icx1 = ic[3] * xr0 + ic[4] * xr1 + ic[5] * xr2
-        icx2 = ic[6] * xr0 + ic[7] * xr1 + ic[8] * xr2
-        mahal = jnp.maximum(xr0 * icx0 + xr1 * icx1 + xr2 * icx2, 0.0)
-        exponent = 0.5 * d2 * mahal
-        zero = jnp.float32(0.0)
+        xr = [tp[c] - mu[c] for c in range(3)]
+        icx = [ic[3 * r] * xr[0] + ic[3 * r + 1] * xr[1] + ic[3 * r + 2] * xr[2]
+               for r in range(3)]
+        mahal = jnp.maximum(xr[0] * icx[0] + xr[1] * icx[1] + xr[2] * icx[2], 0.0)
         if gicp:
-            # d2 slot carries max_corr_dist^2 in GICP mode (unused by the
-            # quadratic cost): the reference's correspondence-distance gate
-            # (gicp_corr_dist_threshold) on top of the Mahalanobis trim
-            dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2
-            ok = valid & (mahal <= gicp_max_mahal) & (dist2 <= d2)
+            dist2 = xr[0] * xr[0] + xr[1] * xr[1] + xr[2] * xr[2]
+            ok = valid & (mahal <= max_mahal) & (dist2 <= d2)
             pair_score = -mahal
-            f = jnp.where(ok, jnp.float32(-2.0), zero)
+            f = jnp.where(ok, -2.0, zero)
         else:
-            ok = valid & (exponent <= jnp.float32(MAX_EXPONENT_ARG))
+            exponent = 0.5 * d2 * mahal
+            ok = valid & (exponent <= MAX_EXPONENT_ARG)
             e = jnp.exp(-jnp.where(ok, exponent, zero))
             pair_score = -d1 * e
             f = d1 * d2 * e
             f = jnp.where(ok & (jnp.abs(f) >= MIN_FACTOR), f, zero)
-        score = score + jnp.sum(jnp.where(ok, pair_score, zero))
-        count = count + jnp.sum(jnp.where(ok, jnp.float32(1.0), zero))
-        b0 = b0 + f * icx0
-        b1 = b1 + f * icx1
-        b2 = b2 + f * icx2
+        score = score + jnp.where(ok, pair_score, zero)
+        count = count + jnp.where(ok, 1.0, zero)
+        b = [b[c] + f * icx[c] for c in range(3)]
         M = [M[c] + f * ic[c] for c in range(9)]
-
-    _finish_block(
-        (R00, R01, R02, R10, R11, R12, R20, R21, R22),
-        (x0, x1, x2), (b0, b1, b2), M, score, count, out_ref,
-    )
-
-
-def _finish_block(Rf, x, b, M, score, count, out_ref):
-    """Shared accumulator tail: assemble gradient/Hessian from the pair-loop
-    moments (b = sum f*icx planes, M = sum f*icov planes) and accumulate the
-    44 reduction outputs. Identical for the NDT, GICP and aniso pair loops."""
-    R00, R01, R02, R10, R11, R12, R20, R21, R22 = Rf
-    x0, x1, x2 = x
-    b0, b1, b2 = b
-    # gradient: q = R^T b ; g_v = sum q ; g_w = sum x cross q
-    q0 = R00 * b0 + R10 * b1 + R20 * b2
-    q1 = R01 * b0 + R11 * b1 + R21 * b2
-    q2 = R02 * b0 + R12 * b1 + R22 * b2
-    gv = [jnp.sum(q0), jnp.sum(q1), jnp.sum(q2)]
-    gw = [
-        jnp.sum(x1 * q2 - x2 * q1),
-        jnp.sum(x2 * q0 - x0 * q2),
-        jnp.sum(x0 * q1 - x1 * q0),
-    ]
-
-    # P = R^T M R per point (planes); Rcols[a][i] = R[i, a]
-    Rm = ((R00, R01, R02), (R10, R11, R12), (R20, R21, R22))
-    P = [[None] * 3 for _ in range(3)]
-    for a in range(3):
-        for bcol in range(3):
-            acc = None
-            for ii in range(3):
-                for jj in range(3):
-                    term = (Rm[ii][a] * Rm[jj][bcol]) * M[3 * ii + jj]
-                    acc = term if acc is None else acc + term
-            P[a][bcol] = acc
-
-    def cross(u):  # x cross (u0, u1, u2) planes
-        return (
-            x[1] * u[2] - x[2] * u[1],
-            x[2] * u[0] - x[0] * u[2],
-            x[0] * u[1] - x[1] * u[0],
-        )
-
-    # H_vv = sum P ; Q[:, b] = x cross P[:, b]; H_wv = sum Q ;
-    # H_ww[a, :] = sum x cross Q[a, :]
-    Qcols = [cross((P[0][bcol], P[1][bcol], P[2][bcol])) for bcol in range(3)]
-    H = [[jnp.zeros(()) for _ in range(6)] for _ in range(6)]
-    for a in range(3):
-        for bcol in range(3):
-            H[3 + a][3 + bcol] = jnp.sum(P[a][bcol])
-            H[a][3 + bcol] = jnp.sum(Qcols[bcol][a])
-            H[3 + bcol][a] = H[a][3 + bcol]
-    for a in range(3):
-        wrow = cross((Qcols[0][a], Qcols[1][a], Qcols[2][a]))
-        for bcol in range(3):
-            H[a][bcol] = jnp.sum(wrow[bcol])
-
-    out_ref[0, 0] = out_ref[0, 0] + score
-    out_ref[0, 43] = out_ref[0, 43] + count
-    for c in range(3):
-        out_ref[0, 1 + c] = out_ref[0, 1 + c] + gw[c]
-        out_ref[0, 4 + c] = out_ref[0, 4 + c] + gv[c]
-    for a in range(6):
-        for bcol in range(6):
-            idx = 7 + 6 * a + bcol
-            out_ref[0, idx] = out_ref[0, idx] + H[a][bcol]
+    out_ref[...] = _finish_block(R, x, b, M, score, count)
 
 
 def _kernel_aniso(params_ref, ptsT_ref, megaT_ref, scovT_ref, out_ref):
-    """Plane-to-plane GICP pair math: per pair fuse S = C_t + R C_src R^T,
-    invert 3x3 in-register (closed-form adjugate), trimmed quadratic cost.
+    """Plane-to-plane GICP pair math for one block: per pair fuse
+    S = C_t + R C_src R^T, invert it in registers (closed-form adjugate) and
+    apply the trimmed quadratic cost.
 
-    megaT carries the AUX payload (mean(3), plane-regularized target COV(9)
-    per slot); scovT (9, B) is the per-POINT body-frame source covariance.
-    params: R(9), t(3), [12] unused, [13] max_corr_dist^2, [14] unused,
-    [15] max_mahal.
+    megaT carries the aux payload (mean(3), plane-regularized target
+    covariance(9) per slot); scovT ((9, B)) is the per-point body-frame
+    source covariance. params: R(9), t(3), unused, max_corr_dist^2, unused,
+    max_mahal.
     """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        for c in range(44):
-            out_ref[0, c] = 0.0
-
-    R00, R01, R02 = params_ref[0, 0], params_ref[0, 1], params_ref[0, 2]
-    R10, R11, R12 = params_ref[0, 3], params_ref[0, 4], params_ref[0, 5]
-    R20, R21, R22 = params_ref[0, 6], params_ref[0, 7], params_ref[0, 8]
-    t0, t1, t2 = params_ref[0, 9], params_ref[0, 10], params_ref[0, 11]
-    corr2 = params_ref[0, 13]
-    max_mahal = params_ref[0, 15]
-
-    x0 = ptsT_ref[0, :]
-    x1 = ptsT_ref[1, :]
-    x2 = ptsT_ref[2, :]
-    tp0 = R00 * x0 + R01 * x1 + R02 * x2 + t0
-    tp1 = R10 * x0 + R11 * x1 + R12 * x2 + t1
-    tp2 = R20 * x0 + R21 * x1 + R22 * x2 + t2
-
-    # rc = R C_src R^T per point (C_src symmetric row-major in scovT)
-    Rm = ((R00, R01, R02), (R10, R11, R12), (R20, R21, R22))
+    p, R, x, tp = _load_pose(params_ref, ptsT_ref)
+    corr2, max_mahal = p[13], p[15]
+    # rc = R C_src R^T per point (C_src symmetric, row-major in scovT)
     s = [scovT_ref[c, :] for c in range(9)]
-    RC = [[None] * 3 for _ in range(3)]  # R @ C_src
-    for ii in range(3):
-        for jj in range(3):
-            RC[ii][jj] = (
-                Rm[ii][0] * s[jj] + Rm[ii][1] * s[3 + jj] + Rm[ii][2] * s[6 + jj]
-            )
-    rc = [[None] * 3 for _ in range(3)]  # (R C) @ R^T
-    for ii in range(3):
-        for jj in range(3):
-            rc[ii][jj] = (
-                RC[ii][0] * Rm[jj][0] + RC[ii][1] * Rm[jj][1] + RC[ii][2] * Rm[jj][2]
-            )
+    RC = [[R[3 * i] * s[j] + R[3 * i + 1] * s[3 + j] + R[3 * i + 2] * s[6 + j]
+           for j in range(3)] for i in range(3)]
+    rc = [[RC[i][0] * R[3 * j] + RC[i][1] * R[3 * j + 1] + RC[i][2] * R[3 * j + 2]
+           for j in range(3)] for i in range(3)]
 
-    score = jnp.zeros((), jnp.float32)
-    count = jnp.zeros((), jnp.float32)
-    b0 = jnp.zeros_like(x0)
-    b1 = jnp.zeros_like(x0)
-    b2 = jnp.zeros_like(x0)
-    M = [jnp.zeros_like(x0) for _ in range(9)]
-    zero = jnp.float32(0.0)
-
+    zero = jnp.zeros_like(x[0])
+    score = count = zero
+    b = [zero] * 3
+    M = [zero] * 9
     for k in range(7):
         base = 12 * k
-        mu0 = megaT_ref[base + 0, :]
-        mu1 = megaT_ref[base + 1, :]
-        mu2 = megaT_ref[base + 2, :]
+        mu = [megaT_ref[base + c, :] for c in range(3)]
         ct = [megaT_ref[base + 3 + c, :] for c in range(9)]
         valid = megaT_ref[84 + k, :] > 0.5
         # fused symmetric S = C_t + rc (6 unique planes)
@@ -258,37 +156,79 @@ def _kernel_aniso(params_ref, ptsT_ref, megaT_ref, scovT_ref, out_ref):
         c12 = s01 * s02 - s00 * s12
         c22 = s00 * s11 - s01 * s01
         det = s00 * c00 + s01 * c01 + s02 * c02
-        inv_det = jnp.float32(1.0) / jnp.where(
-            jnp.abs(det) > jnp.float32(1e-30), det, jnp.float32(1.0)
-        )
-        i00 = c00 * inv_det
-        i01 = c01 * inv_det
-        i02 = c02 * inv_det
-        i11 = c11 * inv_det
-        i12 = c12 * inv_det
-        i22 = c22 * inv_det
-        xr0 = tp0 - mu0
-        xr1 = tp1 - mu1
-        xr2 = tp2 - mu2
-        icx0 = i00 * xr0 + i01 * xr1 + i02 * xr2
-        icx1 = i01 * xr0 + i11 * xr1 + i12 * xr2
-        icx2 = i02 * xr0 + i12 * xr1 + i22 * xr2
-        mahal = jnp.maximum(xr0 * icx0 + xr1 * icx1 + xr2 * icx2, 0.0)
-        dist2 = xr0 * xr0 + xr1 * xr1 + xr2 * xr2
+        inv_det = 1.0 / jnp.where(jnp.abs(det) > 1e-30, det, 1.0)
+        i00, i01, i02 = c00 * inv_det, c01 * inv_det, c02 * inv_det
+        i11, i12, i22 = c11 * inv_det, c12 * inv_det, c22 * inv_det
+        xr = [tp[c] - mu[c] for c in range(3)]
+        icx = [
+            i00 * xr[0] + i01 * xr[1] + i02 * xr[2],
+            i01 * xr[0] + i11 * xr[1] + i12 * xr[2],
+            i02 * xr[0] + i12 * xr[1] + i22 * xr[2],
+        ]
+        mahal = jnp.maximum(xr[0] * icx[0] + xr[1] * icx[1] + xr[2] * icx[2], 0.0)
+        dist2 = xr[0] * xr[0] + xr[1] * xr[1] + xr[2] * xr[2]
         ok = valid & (mahal <= max_mahal) & (dist2 <= corr2)
-        f = jnp.where(ok, jnp.float32(-2.0), zero)
-        score = score + jnp.sum(jnp.where(ok, -mahal, zero))
-        count = count + jnp.sum(jnp.where(ok, jnp.float32(1.0), zero))
-        b0 = b0 + f * icx0
-        b1 = b1 + f * icx1
-        b2 = b2 + f * icx2
+        f = jnp.where(ok, -2.0, zero)
+        score = score + jnp.where(ok, -mahal, zero)
+        count = count + jnp.where(ok, 1.0, zero)
+        b = [b[c] + f * icx[c] for c in range(3)]
         fi = (i00, i01, i02, i01, i11, i12, i02, i12, i22)
         M = [M[c] + f * fi[c] for c in range(9)]
+    out_ref[...] = _finish_block(R, x, b, M, score, count)
 
-    _finish_block(
-        (R00, R01, R02, R10, R11, R12, R20, R21, R22),
-        (x0, x1, x2), (b0, b1, b2), M, score, count, out_ref,
-    )
+
+def _finish_block(R, x, b, M, score, count):
+    """Shared tail of the three pair loops: assemble gradient and Hessian
+    from the per-point moments (b = sum f*icx, M = sum f*icov) and reduce the
+    block to its (64,) partials row. Tangent order is [omega, v]."""
+    # gradient: q = R^T b ; g_v = sum q ; g_w = sum x cross q
+    q = [R[a] * b[0] + R[3 + a] * b[1] + R[6 + a] * b[2] for a in range(3)]
+    gv = [jnp.sum(q[a]) for a in range(3)]
+    gw = [
+        jnp.sum(x[1] * q[2] - x[2] * q[1]),
+        jnp.sum(x[2] * q[0] - x[0] * q[2]),
+        jnp.sum(x[0] * q[1] - x[1] * q[0]),
+    ]
+
+    # P = R^T M R per point (symmetric: 6 unique planes)
+    P = [[None] * 3 for _ in range(3)]
+    for a in range(3):
+        for c in range(a, 3):
+            acc = None
+            for i in range(3):
+                for j in range(3):
+                    term = (R[3 * i + a] * R[3 * j + c]) * M[3 * i + j]
+                    acc = term if acc is None else acc + term
+            P[a][c] = P[c][a] = acc
+
+    def cross(u):  # x cross u, per point
+        return (
+            x[1] * u[2] - x[2] * u[1],
+            x[2] * u[0] - x[0] * u[2],
+            x[0] * u[1] - x[1] * u[0],
+        )
+
+    # H_vv = sum P ; Q[:, c] = x cross P[:, c] ; H_wv = sum Q ;
+    # H_ww[a, :] = sum x cross Q[a, :] (symmetric)
+    Qcols = [cross((P[0][c], P[1][c], P[2][c])) for c in range(3)]
+    H = [[None] * 6 for _ in range(6)]
+    for a in range(3):
+        for c in range(3):
+            if c >= a:
+                H[3 + a][3 + c] = H[3 + c][3 + a] = jnp.sum(P[a][c])
+            H[a][3 + c] = H[3 + c][a] = jnp.sum(Qcols[c][a])
+    for a in range(3):
+        wrow = cross((Qcols[0][a], Qcols[1][a], Qcols[2][a]))
+        for c in range(a, 3):
+            H[a][c] = H[c][a] = jnp.sum(wrow[c])
+
+    vals = [jnp.sum(score), *gw, *gv, *(H[a][c] for a in range(6) for c in range(6)),
+            jnp.sum(count)]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (_OUT_LANES,), 0)
+    row = jnp.zeros((_OUT_LANES,), jnp.float32)
+    for c, v in enumerate(vals):
+        row = jnp.where(lane == c, v, row)
+    return row
 
 
 def gather_megaT(
@@ -317,82 +257,102 @@ def gather_megaT(
     return mega.T.astype(jnp.float32)  # (96, N)
 
 
+def _kernel_sums(params, ptsT, megaT, src_covT, gicp, block, interpret):
+    """Run the kernel over all point blocks and reduce the partials rows."""
+    N = ptsT.shape[1]
+    pad = -N % block
+    ops = [ptsT, megaT] + ([] if src_covT is None else [src_covT])
+    if pad:  # zero rows are sentinels: they contribute nothing
+        ops = [jnp.pad(a, ((0, 0), (0, pad))) for a in ops]
+    nb = (N + pad) // block
+    kernel = (
+        _kernel_aniso if src_covT is not None
+        else functools.partial(_kernel, gicp=gicp)
+    )
+    partials = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((nb, _OUT_LANES), jnp.float32),
+        grid=(nb,),
+        in_specs=[pl.BlockSpec((16,), lambda i: (0,))]
+        + [pl.BlockSpec((a.shape[0], block), lambda i: (0, i)) for a in ops],
+        out_specs=pl.BlockSpec((None, _OUT_LANES), lambda i: (i, 0)),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="ndt_pair_math",
+    )(params, *ops)
+    return jnp.sum(partials, axis=0)
+
+
+def _xla_objective(ptsT, megaT, pose, d1, d2, hess_lambda, gicp, max_mahal, src_covT):
+    """The plain XLA path on the same pre-gathered rows (the transposes cancel
+    against the ones ``gather_megaT`` and the callers apply)."""
+    from . import gicp as gicp_mod
+    from .regmap import score_grad_hess_gathered
+
+    pts = ptsT.T
+    mega = megaT.T
+    N = pts.shape[0]
+    fields = mega[:, :84].reshape(N, 7, 12)
+    mu = fields[..., 0:3]
+    cov = fields[..., 3:12].reshape(N, 7, 3, 3)
+    active = mega[:, 84:91] > 0.5
+    if src_covT is not None:
+        return gicp_mod.score_grad_hess_gicp_aniso_gathered(
+            pts, src_covT.T.reshape(N, 3, 3), pose, mu, cov, active,
+            hess_lambda, max_mahal, d2**0.5,
+        )
+    if gicp:
+        return gicp_mod.score_grad_hess_gicp_gathered(
+            pts, pose, mu, cov, active, hess_lambda, max_mahal, d2**0.5
+        )
+    return score_grad_hess_gathered(pts, pose, mu, cov, active, d1, d2, hess_lambda)
+
+
 def fused_objective(
     ptsT, megaT, pose: Pose3, d1, d2, hess_lambda=1e-6,
     gicp: bool = False, gicp_max_mahal: float = 9.0, block: int = None,
-    interpret: bool = None, src_covT=None,
+    interpret: bool = False, src_covT=None, platform: str = None,
 ) -> NdtObjective:
-    """Pallas side: the fused pair math on pre-gathered mega rows.
+    """The pair math on pre-gathered mega rows.
 
     With ``gicp=True`` the pair weight switches to the trimmed quadratic
-    GICP cost (use a RegMap built from gicp_map; d1/d2 are ignored).
-    With ``src_covT`` ((9, N) per-point body-frame source covariances) the
-    kernel runs the PLANE-TO-PLANE mode: megaT must carry the aux payload
-    (plane-regularized target COVARIANCES), the per-pair fusion
-    (C_t + R C_s R^T)^-1 happens in-register, and d2 carries
-    max_corr_dist^2. ``block`` overrides the point-block size (default
-    BLOCK; tests on small sharded inputs use smaller blocks). ``interpret``
-    must be True when the computation executes on non-TPU devices; None
-    falls back to the default backend — callers that place work on an
-    explicit (e.g. CPU test) mesh while a TPU is the default backend MUST
-    pass it (the default backend is not where a shard_map over another
-    platform's mesh runs)."""
-    N = ptsT.shape[1]
-    block = block or BLOCK
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    assert N % block == 0, f"N={N} must be a multiple of block={block}"
+    GICP cost (use a RegMap built from gicp_map; d1 is ignored and d2
+    carries max_corr_dist^2). With ``src_covT`` ((9, N) per-point body-frame
+    source covariances) it runs the PLANE-TO-PLANE mode: megaT must carry the
+    aux payload (plane-regularized target COVARIANCES), the per-pair fusion
+    (C_t + R C_s R^T)^-1 happens in registers, and d2 carries
+    max_corr_dist^2.
+
+    ``pair_math_impl(platform)`` picks the kernel or the plain XLA path;
+    ``interpret=True`` (tests only) runs the kernel in the Pallas interpreter
+    on any platform. ``block`` overrides the points per program."""
+    if not interpret and pair_math_impl(platform) == "xla":
+        return _xla_objective(
+            ptsT, megaT, pose, d1, d2, hess_lambda, gicp, gicp_max_mahal, src_covT
+        )
     params = jnp.concatenate(
         [
             pose.rot.astype(jnp.float32).reshape(9),
             pose.trans.astype(jnp.float32),
-            jnp.asarray(
-                [d1, d2, 1.0 if gicp else 0.0, gicp_max_mahal], jnp.float32
-            ),
+            jnp.asarray([d1, d2, 0.0, gicp_max_mahal], jnp.float32),
         ]
-    ).reshape(1, 16)
+    )
     if src_covT is not None:
-        out = pl.pallas_call(
-            _kernel_aniso,
-            out_shape=jax.ShapeDtypeStruct((1, 64), jnp.float32),
-            grid=(N // block,),
-            in_specs=[
-                pl.BlockSpec((1, 16), lambda i: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((3, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((96, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((9, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 64), lambda i: (0, 0), memory_space=pltpu.SMEM
-            ),
-            interpret=interpret,
-        )(params, ptsT, megaT, src_covT.astype(jnp.float32))[0]
-    else:
-        out = pl.pallas_call(
-            functools.partial(_kernel, gicp=gicp),
-            out_shape=jax.ShapeDtypeStruct((1, 64), jnp.float32),
-            grid=(N // block,),
-            in_specs=[
-                pl.BlockSpec((1, 16), lambda i: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((3, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((96, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 64), lambda i: (0, 0), memory_space=pltpu.SMEM
-            ),
-            interpret=interpret,  # CPU tests / CPU meshes run interpreted
-        )(params, ptsT, megaT)[0]
-
-    score = out[0]
-    grad = out[1:7]
-    hess = out[7:43].reshape(6, 6)
-    hess = hess + hess_lambda * jnp.eye(6, dtype=jnp.float32)
-    return NdtObjective(score, grad, hess, out[43].astype(jnp.int32))
+        src_covT = src_covT.astype(jnp.float32)
+    out = _kernel_sums(
+        params, ptsT.astype(jnp.float32), megaT, src_covT, gicp,
+        block or BLOCK, interpret,
+    )
+    hess = out[7:43].reshape(6, 6) + hess_lambda * jnp.eye(6, dtype=jnp.float32)
+    return NdtObjective(out[0], out[1:7], hess, out[43].astype(jnp.int32))
 
 
-@functools.partial(jax.jit, static_argnames=("grid_shape", "hess_lambda", "d1", "d2"))
+@functools.partial(
+    jax.jit,
+    static_argnames=("grid_shape", "hess_lambda", "d1", "d2", "block", "interpret"),
+)
 def score_grad_hess_fused(
-    points: jax.Array,  # (N, 3) float32, N multiple of BLOCK
+    points: jax.Array,  # (N, 3) float32
     mask: jax.Array,  # (N,)
     pose: Pose3,
     regmap: RegMap,
@@ -400,14 +360,18 @@ def score_grad_hess_fused(
     d2: float,
     grid_shape: tuple,
     hess_lambda: float = 1e-6,
+    block: int = None,
+    interpret: bool = False,
 ) -> NdtObjective:
-    """XLA gathers + Pallas fused pair math. float32 only (device path)."""
+    """XLA gathers + the pair math of ``fused_objective``. float32 only."""
     from .objective import sanitize_points
 
-    assert points.shape[0] % BLOCK == 0, f"N must be a multiple of {BLOCK}"
     points, mask = sanitize_points(points, mask)
     megaT = gather_megaT(points, mask, pose, regmap, grid_shape)
-    return fused_objective(points.T.astype(jnp.float32), megaT, pose, d1, d2, hess_lambda)
+    return fused_objective(
+        points.T.astype(jnp.float32), megaT, pose, d1, d2, hess_lambda,
+        block=block, interpret=interpret,
+    )
 
 
 def gicp_align_fused(
@@ -419,12 +383,13 @@ def gicp_align_fused(
     grid_shape: tuple,
     inner_iters: int = 1,
     max_mahal: float = 9.0,
-    interpret: bool = None,
+    interpret: bool = False,
+    block: int = None,
 ):
-    """VGICP registration on the fused kernel (cf. ndt.gicp)."""
+    """VGICP registration on the fused pair math (cf. ndt.gicp)."""
     return newton_align_fused(
         points, mask, regmap, init_pose, cfg, grid_shape, inner_iters,
-        _gicp=True, _gicp_max_mahal=max_mahal, interpret=interpret,
+        _gicp=True, _gicp_max_mahal=max_mahal, interpret=interpret, block=block,
     )
 
 
@@ -437,13 +402,16 @@ def newton_align_fused(
     grid_shape: tuple,
     inner_iters: int = 1,
     reg_pose: Pose3 = None,
-    interpret: bool = None,
+    interpret: bool = False,
     block: int = None,
     final_eval: bool = False,
+    platform: str = None,
     _gicp: bool = False,
     _gicp_max_mahal: float = 9.0,
 ) -> "NewtonResult":
-    """Newton registration on the fused kernel.
+    """Newton registration on the fused pair math (``fused_objective``:
+    the kernel on a GPU, plain XLA on the CPU; ``platform`` names the
+    platform when the caller knows it, as the sharded paths do).
 
     ``inner_iters > 1`` re-uses each gather for several Newton steps (voxel
     assignments change negligibly between steps once the pose is within a
@@ -461,8 +429,8 @@ def newton_align_fused(
 
     Contract: by default the returned (score, hessian) are evaluated at the
     pose BEFORE the final retract — within ``trans_eps`` of the returned pose
-    once converged (the extra gather+kernel launch would cost ~10% of the
-    registration, and the apps consume the Hessian only as a converged-pose
+    once converged (this saves one gather and evaluation per registration,
+    and the apps consume the Hessian only as a converged-pose
     covariance). Pass ``final_eval=True`` to re-evaluate the objective at the
     RETURNED pose instead, matching the non-fused ``newton_align`` /
     ``newton_align_reg`` contract exactly (the reference prices factors off
@@ -489,7 +457,7 @@ def newton_align_fused(
         obj = fused_objective(
             ptsT, megaT, pose, d1, d2, cfg.hess_lambda,
             gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, interpret=interpret,
-            block=block,
+            block=block, platform=platform,
         )
         grad, hess = regularize_step(
             pose, obj.grad, obj.hess, obj.n_contrib, cfg, reg_pose
@@ -570,7 +538,7 @@ def newton_align_fused(
         obj = fused_objective(
             ptsT, megaT, pose, d1, d2, cfg.hess_lambda,
             gicp=_gicp, gicp_max_mahal=_gicp_max_mahal, interpret=interpret,
-            block=block,
+            block=block, platform=platform,
         )
         score, hess, nc = obj.score, obj.hess, obj.n_contrib
     return NewtonResult(pose, hess, score, iters, converged, nc)
@@ -584,21 +552,23 @@ def newton_align_fused_batch(
     cfg,  # NewtonConfig
     grid_shape: tuple,
     inner_iters: int = 1,
-    interpret: bool = None,
+    interpret: bool = False,
     block: int = None,
     final_eval: bool = False,
+    platform: str = None,
 ) -> "NewtonResult":
     """Register B scans against ONE shared map in a single dispatch.
 
-    Fills the chip when one scan's registration is gather-bound: the vmap
-    batches the Pallas kernel over a leading grid axis and the per-scan
-    6-dof Newton solves stay independent (the lockstep while_loop runs until
-    every scan converges — iterations report the max). Throughput lever for
-    the BASELINE reg/s target; per-scan accuracy equals the unbatched path.
+    Fills the card when one scan's registration leaves it idle: the vmap
+    batches the kernel over a leading grid axis and the per-scan 6-dof
+    Newton solves stay independent (the lockstep while_loop runs until every
+    scan converges — iterations report the max). Per-scan accuracy equals
+    the unbatched path.
     """
     return jax.vmap(
         lambda p, m, ip: newton_align_fused(
             p, m, regmap, ip, cfg, grid_shape, inner_iters,
             interpret=interpret, block=block, final_eval=final_eval,
+            platform=platform,
         )
     )(points, mask, init_pose)

@@ -1,8 +1,8 @@
 """Registration-optimized map layout: dense-grid DIRECT7 without per-point search.
 
 The baseline objective (slamtpu.ndt.objective) does 7 sorted-key binary
-searches + 13-float gathers per point per iteration — on TPU the searches and
-small gathers dominate (measured ~94% of the evaluation). This module trades
+searches + 13-float gathers per point per iteration, and the searches and
+small gathers dominate its evaluation. This module trades
 per-map precomputation (amortized over all Newton/SVN iterations) for a
 search-free per-point path:
 
@@ -17,13 +17,11 @@ search-free per-point path:
    box mapping cell -> dilated row (sentinel D outside/missing).
 
 Per point per iteration this leaves: 1 grid gather + 1 mega-row gather +
-fused math — no searchsorted in the hot loop. TPU gathers cost per ROW, not
-per byte (measured ~14 ns/row regardless of row width), so the payloads of
-all 7 DIRECT7 neighbors are packed into ONE (D+1, 96)-float row per dilated
-cell: [7 x (mean(3), icov(9))] + 7 validity flags + pad. Mosaic's
-``tpu.dynamic_gather`` cannot address tables beyond one vreg (8 sublanes), so
-an in-kernel VMEM gather is not available on this toolchain — mega-rows are
-the next-best memory layout for XLA's HBM gather engine.
+fused math — no searchsorted in the hot loop. A random row gather pays per
+row far more than per byte, so the payloads of all 7 DIRECT7 neighbors are
+packed into ONE (D+1, 96)-float row per dilated cell:
+[7 x (mean(3), icov(9))] + 7 validity flags + pad — one gathered row per
+point and iteration (``pallas_math.gather_megaT``).
 """
 from __future__ import annotations
 
@@ -86,12 +84,11 @@ def build_regmap(
     """Precompute the registration layout from a finalized GaussianMap.
 
     Deliberately searchsorted-free: neighbor resolution goes through the
-    dense grid (scatter once, gather per neighbor) — binary searches compile
-    pathologically slowly on the TPU backend in use.
+    dense grid (scatter once, gather per neighbor).
 
     ``aux_payload`` (V, 12): optional alternative per-voxel payload packed
     into ``RegMap.packed_aux`` over the same dilated layout (one extra
-    full-row scatter, ~16 ms at Berlin scale — vs ~60 ms for a second build).
+    full-row scatter instead of a second build).
     """
     V = gmap.capacity
     D = dilated_capacity or 4 * V
@@ -147,9 +144,8 @@ def build_regmap(
     # set by construction (off_j and -off_j are both DIRECT7 offsets), so one
     # full-row scatter-add of 7V rows writes every (cell, slot) payload. Rows
     # are disjoint per (v, j), values land on zeros, so add == set; dropped /
-    # invalid targets go to row D+1 which is sliced off. Full-row scatter-add
-    # measures ~16 ms for 7V=917k x 96f on this backend vs ~100 ms for the
-    # (D, 7)-gather formulation it replaces (D = 4V is mostly padding).
+    # invalid targets go to row D+1 which is sliced off. It replaces a
+    # (D, 7)-gather formulation (D = 4V is mostly padding).
     trow = jnp.concatenate(
         [
             grid[cell_of(coords - off[None, :], gmap.valid)]
@@ -218,7 +214,7 @@ def build_regmap_kdtree(
     neighbors DIRECT7 never sees, and leaves reachable from cells that are
     themselves empty.
 
-    TPU-native re-design — no tree, no per-point search: a leaf centroid lies
+    Array-program re-design — no tree, no per-point search: a leaf centroid lies
     inside its own voxel, so every leaf within ``resolution`` of a point in
     cell c sits in c's 3x3x3 cell neighborhood. At build time each cell of
     the 27-dilated set precomputes its <=7 nearest candidate leaves (by

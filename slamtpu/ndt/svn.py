@@ -1,4 +1,4 @@
-"""Stein-Variational-Newton NDT registration: pose posterior on TPU.
+"""Stein-Variational-Newton NDT registration: a pose posterior.
 
 Re-design of ``svn_ndt::SvnNormalDistributionsTransform::align``
 (/root/reference/extern/svn_ndt/include/svn_ndt_impl.hpp:674-964). The K
@@ -161,13 +161,15 @@ def svn_align_reg(
 
     d1, d2, _ = gauss_constants(cfg.resolution, cfg.outlier_ratio)
 
-    from .pallas_math import BLOCK, fused_objective, gather_megaT
+    from .pallas_math import fused_objective, gather_megaT, pair_math_impl
 
-    use_fused = points.dtype == jnp.float32 and points.shape[0] % BLOCK == 0
-    if use_fused:
+    # the kernel path gathers float32 mega rows; the plain path keeps the
+    # points' dtype (float64 in the CPU tests)
+    use_kernel = pair_math_impl() == "kernel"
+    if use_kernel:
         ptsT = points.T
 
-    if cfg.shared_gather and use_fused:
+    if cfg.shared_gather and use_kernel:
 
         def make_obj(mean_pose):
             megaT = gather_megaT(
@@ -218,10 +220,9 @@ def svn_align_reg(
 
         pts_s, _ = sanitize_points(points, mask)
 
-        if use_fused:
-            # fused plane-to-plane kernel: per-pair (C_t + R C_s R^T)^-1
-            # in-register — the XLA (N,7,3,3) inversion chain costs ~38 ms
-            # at Berlin scale and compiles for minutes on this backend
+        if use_kernel:
+            # fused plane-to-plane kernel: per-pair (C_t + R C_s R^T)^-1 in
+            # registers instead of XLA's (N, 7, 3, 3) inversion chain
             N = points.shape[0]
             scovT = src_cov.reshape(N, 9).T.astype(jnp.float32)
 
@@ -332,9 +333,9 @@ def _svn_loop(
     if cfg.polish_iters > 0:
         # MAP polish: Newton ascent from the particle mean — on the NDT score
         # or on a dedicated polish objective (e.g. plane-to-plane GICP).
-        # Each step re-anchors the gather at its own pose (a gather is ~4 ms
-        # at Berlin scale; measured: fresh-gather aniso Newton reaches 5 mm
-        # in 2 steps from a 25 mm-off start where stale-gather needed >8).
+        # Each step re-anchors the gather at its own pose (measured:
+        # fresh-gather aniso Newton reaches 5 mm in 2 steps from a 25 mm-off
+        # start where stale-gather needed >8).
         def polish_step(mk_fn):
             def polish_body(_i, carry):
                 pose, _score = carry

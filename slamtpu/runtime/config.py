@@ -20,7 +20,7 @@ from ..lidar.ouster import LidarParams, SensorMeta, synthetic_os2_metadata
 # The reference's flat snake_case key schema, exactly as parsed by
 # RegisterCallback::ParseParamdata (/root/reference/src/registercallback.cpp:
 # 24-91) and shipped in config/register_config.json. "num_threads" is parsed
-# and ignored (OpenMP sizing has no TPU equivalent — vmap/XLA decide).
+# and ignored (OpenMP sizing has no equivalent here — vmap/XLA decide).
 # "ndt_regularization_scale_factor" is the key the shipped JSON actually uses
 # (the reference parser looks for "regularization_scale_factor" and therefore
 # silently keeps its default; we accept both spellings).
@@ -119,10 +119,9 @@ class RegisterConfig:
     # extension: source-covariance construction for the plane-to-plane
     # polish (lo_svn) AND the GICP-aniso engine (odom_ndt).
     # "stencil" computes each point's plane-regularized
-    # covariance from its RANGE-IMAGE neighborhood (pure shifts + FMA,
-    # <1 ms; ndt.gicp.stencil_point_covariances); "voxel" is the sort-based
-    # voxelized analog of gicp_omp's kNN covariances (~15 ms per Berlin
-    # sweep). Apps fall back to "voxel" when the scan has no grid layout.
+    # covariance from its RANGE-IMAGE neighborhood (pure shifts + FMA;
+    # ndt.gicp.stencil_point_covariances); "voxel" is the sort-based
+    # voxelized analog of gicp_omp's kNN covariances. Apps fall back to "voxel" when the scan has no grid layout.
     svn_src_cov: str = "stencil"
     # extension: variance floor added to the registration covariance
     # -(H + eps I)^-1 before it enters a factor graph (odom_ndt / ligo_tc).
@@ -144,13 +143,13 @@ class RegisterConfig:
     reg_grid_shape: tuple = (256, 256, 64)  # dense-grid extent in voxels
     # rebuild the registration map every N keyframes (1 = the reference's
     # per-keyframe setInputTarget; higher trades <=N-1 keyframes of target
-    # staleness for amortizing the ~66 ms Berlin-scale map+RegMap build)
+    # staleness for amortizing the map+RegMap build)
     map_rebuild_every: int = 1
     # extension (lo_svn): map rebuilds skip the newest N keyframe clouds in
     # the ring. Registering against content rendered from viewpoints close
     # to the current one carries a measured viewpoint-proximity bias
     # (~10 mm published-pose error at 0.3 m separation, decaying below 1 mm
-    # past ~1.5 m at Berlin scale — BENCH_NOTES round-4 error budget); the
+    # past ~1.5 m at Berlin scale, measured); the
     # nearest clouds add no coverage the current scan lacks, so excluding
     # them removes the bias at zero cost. 0 = reference full-window
     # semantics.
@@ -168,8 +167,8 @@ class RegisterConfig:
     # extension (odom_ndt, with odom_target_window > 1): drop the newest N
     # clouds from the registration target. The ring-pattern lock that stalls
     # scan-to-previous NDT is a nearest-viewpoint effect (phase correlation
-    # decays below mm past ~1.5 m of viewpoint separation, BENCH_NOTES "ATE
-    # error budget"); excluding the adjacent cloud(s) registers against
+    # decays below mm past ~1.5 m of viewpoint separation, measured);
+    # excluding the adjacent cloud(s) registers against
     # viewpoints whose ring phases have diverged while the smoother chain is
     # unchanged. Capped at odom_target_window - 1.
     odom_target_exclude: int = 0
@@ -179,8 +178,8 @@ class RegisterConfig:
     # loss; larger values trade convergence rate on hard scenes
     fused_inner_iters: int = 2
     # window-smoother linear solver (fusion.smoother.SmootherConfig.solver):
-    # "chol" = Jacobi-equilibrated normal-equation Cholesky (fast; TPU
-    # small-matrix QR is sequential-per-column), "qr" = augmented-Jacobian
+    # "chol" = Jacobi-equilibrated normal-equation Cholesky (fast:
+    # small-matrix QR is sequential per column), "qr" = augmented-Jacobian
     # QR (most conservative f32 conditioning)
     smoother_solver: str = "chol"
 

@@ -1,68 +1,25 @@
 """Persistent XLA compilation cache.
 
-Compiles are pathologically slow in this environment (sort-heavy map-build
-graphs: tens of seconds to minutes, BENCH_NOTES.md) and nothing persists them
-across processes by default — every app/bench/driver invocation repaid the
-full cost. Entry points call :func:`enable_persistent_cache` before the first
-jit so warm runs load compiled executables from disk instead.
+Entry points call :func:`enable_persistent_cache` before the first jit so that
+later processes load compiled executables from disk instead of compiling the
+map-build and registration graphs again.
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets nothing. Otherwise the cache lives in ``.jax_cache/`` at the root
+of the checkout: a fixed path, because the path is part of the cache key.
 """
 from __future__ import annotations
 
-import hashlib
-import logging
 import os
+from pathlib import Path
 
-log = logging.getLogger("slamtpu.jaxcache")
-
-_DEFAULT_DIR = os.path.expanduser("~/.cache/slamtpu-xla")
-
-
-def _host_fingerprint() -> str:
-    """Short hash of this host's CPU feature set.
-
-    JAX's compilation-cache key does NOT include host CPU features, and
-    XLA:CPU persists AOT machine code compiled for the *writing* machine's
-    ISA (AMX/AVX512...). Replaying such an entry on a host without those
-    features is a potential SIGILL ("cpu_aot_loader: ... could lead to
-    execution errors"), so the cache directory is salted per CPU identity.
-    """
-    flags = ""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    flags = line
-                    break
-    except OSError:
-        import platform
-
-        flags = platform.machine() + platform.processor()
-    return hashlib.sha256(flags.encode()).hexdigest()[:12]
+DEFAULT_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_persistent_cache(path: str | None = None) -> None:
+def enable_persistent_cache() -> None:
     """Idempotent; safe to call from every entry point before the first jit."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
     import jax
 
-    root = path or os.environ.get("SLAMTPU_XLA_CACHE", _DEFAULT_DIR)
-    # Salt with the jaxlib build too: a serialized XLA:CPU executable is
-    # machine code for the writing host's ISA *and* runtime ABI — loading a
-    # foreign entry has segfaulted inside cpu_aot_loader (observed killing a
-    # full pytest run mid-suite). Same-salt == same CPU flags + same jaxlib.
-    salt = f"host-{_host_fingerprint()}-jaxlib{jax.__version__}"
-    cache_dir = os.path.join(root, salt)
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        # prune foreign-host cache dirs: they can never be read safely here
-        # and would otherwise accumulate unboundedly across machines
-        for entry in os.listdir(root):
-            stale = os.path.join(root, entry)
-            if entry != salt and os.path.isdir(stale):
-                import shutil
-
-                shutil.rmtree(stale, ignore_errors=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception as e:  # pragma: no cover - config names vary across jax
-        log.warning("persistent compilation cache unavailable: %s", e)
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_DIR))

@@ -6,7 +6,7 @@ windowed eviction of per-keyframe clouds and pose frusta
 PCL/VTK need a local display; this equivalent serves the same state —
 a sliding window of downsampled world-frame keyframe clouds plus the
 trajectory — over a localhost HTTP endpoint to a self-contained HTML5
-canvas renderer (no external assets), so it works over any SSH tunnel.
+canvas renderer (no external assets), so it works over any SSH port forward.
 
 Usage (apps wire this behind ``--viz``):
 

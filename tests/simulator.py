@@ -284,7 +284,7 @@ def simulate_replay(
     while t < t_end + 0.5:
         R, pos = traj.pose(t - t0)
         rpy = np.asarray(so3.rot_to_rpy(jnp.asarray(R)))
-        # numpy float64 path: jnp would run f32 on TPU and quantize lat/lon
+        # numpy float64 path: jnp would run f32 on a device and quantize lat/lon
         # by ~0.6 m (see slamtpu.ins.geodesy)
         lla = ned2lla(
             np.asarray(pos + rng.normal(0, nav_pos_noise, 3), np.float64),

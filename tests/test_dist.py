@@ -94,7 +94,9 @@ class TestShardedNewton:
 class TestGraftEntry:
     def test_entry_and_dryrun(self):
         import sys
-        sys.path.insert(0, "/root/repo")
+        from pathlib import Path
+
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
         import __graft_entry__ as ge
 
         fn, args = ge.entry()
@@ -166,7 +168,7 @@ class TestShardedFused:
         mesh = make_mesh()
         pose, hess, score, iters = newton_align_sharded_fused(
             mesh, src, mask, rm, se3.identity(dtype=jnp.float32), (48, 48, 16),
-            max_iterations=12, inner_iters=4, block=128,
+            max_iterations=12, inner_iters=4, block=128, interpret=True,
         )
         err = np.asarray(se3.local(gt, pose))
         assert np.linalg.norm(err[3:]) < 0.03, err
@@ -177,7 +179,7 @@ class TestShardedFused:
         cfg = NewtonConfig(resolution=1.0, max_iterations=12, trans_eps=1e-4)
         ref = newton_align_fused(
             src, mask, rm, se3.identity(dtype=jnp.float32), cfg, (48, 48, 16),
-            inner_iters=4,
+            inner_iters=4, block=128, interpret=True,
         )
         np.testing.assert_allclose(
             np.asarray(pose.trans), np.asarray(ref.pose.trans), atol=5e-3
@@ -321,10 +323,11 @@ class TestBatchAlignSharded:
         mesh = make_mesh()
         sh = batch_align_sharded(
             mesh, bpts, bmask, rm, init_b, cfg, (48, 48, 16), inner_iters=2,
-            block=128,
+            block=128, interpret=True,
         )
         ref = newton_align_fused_batch(
-            bpts, bmask, rm, init_b, cfg, (48, 48, 16), inner_iters=2, block=128
+            bpts, bmask, rm, init_b, cfg, (48, 48, 16), inner_iters=2, block=128,
+            interpret=True,
         )
         np.testing.assert_allclose(
             np.asarray(sh.pose.trans), np.asarray(ref.pose.trans), atol=1e-6
@@ -342,8 +345,8 @@ class TestBatchAlignSharded:
 class TestCollectiveCounts:
     """Pin the per-step collective budget from the traced jaxpr — the
     driver-visible proof that the sharded paths communicate exactly as
-    documented (SURVEY.md section 2.4: 'psum voxel stats over ICI', 'one
-    43-float psum per Newton step'). A regression that silently adds
+    documented (SURVEY.md section 2.4: 'psum voxel stats', 'one 43-float
+    psum per Newton step'). A regression that silently adds
     collectives (e.g. an accidental replication constraint) fails here."""
 
     NAMES = {

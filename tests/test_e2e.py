@@ -173,8 +173,7 @@ class TestOdomNdt:
     def test_target_exclude_newest(self, replay):
         """odom_target_exclude (extension): register against the window
         clouds MINUS the newest — the scan-to-previous ring-lock fix (the
-        ring-phase correlation is a nearest-viewpoint effect; see
-        BENCH_NOTES "ATE error budget"). Must keep tracking through the
+        ring-phase correlation is a nearest-viewpoint effect). Must keep tracking through the
         fill-up phase, where the exclusion is clamped so at least one
         target cloud always remains."""
         path, gt, cfg = replay

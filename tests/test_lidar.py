@@ -545,7 +545,7 @@ class TestSimulatorEncoder:
 
 class TestMapExcludeRecent:
     """RegisterConfig.map_exclude_recent: rebuilds skip the newest ring
-    clouds (viewpoint-proximity bias, BENCH_NOTES round-4 error budget).
+    clouds (the measured viewpoint-proximity bias).
     Pins the ring-age arithmetic: age 0 = slot (head - 1) mod K."""
 
     def _n_voxels(self, head, exclude):

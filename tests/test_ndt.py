@@ -195,7 +195,7 @@ class TestNonFinitePoints:
         )
         obj = score_grad_hess_fused(
             jnp.asarray(pts), jnp.asarray(mask), se3.identity(dtype=jnp.float32),
-            regmap32, d1, d2, (64, 64, 32),
+            regmap32, d1, d2, (64, 64, 32), block=128, interpret=True,
         )
         assert np.isfinite(float(obj.score))
         assert np.isfinite(np.asarray(obj.grad)).all()
